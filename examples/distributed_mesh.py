@@ -1,16 +1,17 @@
-"""Distributed execution over a TPU/CPU device mesh.
+"""Distributed execution over a device mesh.
 
 Shows the engine's distributed axis (absent in the reference — SURVEY
 §2e): the same SQL runs single-device and data-parallel over a
 `jax.sharding.Mesh` (`SET exon.distributed = true`), with identical
-results. On a TPU pod slice the mesh spans real chips over ICI; here it
-runs on 8 virtual CPU devices so the example works anywhere.
+results. The mesh spans every device JAX finds (all GPUs of the host);
+with --cpu-mesh it runs on 8 virtual CPU devices instead, so the example
+works on a machine without an accelerator.
 
 Covered: sharded GROUP BY (the all_to_all group-state exchange),
 PARTITION BY window over the mesh, a partitioned (both-sides-sharded)
 join, and TopK.
 
-Run: python examples/distributed_mesh.py
+Run: python examples/distributed_mesh.py [--cpu-mesh]
 """
 
 import os
@@ -18,12 +19,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-
 import jax
-
-jax.config.update("jax_platforms", os.environ.get("EXON_PLATFORM", "cpu"))
-
 import numpy as np
 
 
@@ -84,4 +80,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if "--cpu-mesh" in sys.argv[1:]:
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_num_cpu_devices", 8)
     main()

@@ -14,10 +14,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("EXON_PLATFORM", "cpu"))
-
 from exon_tpu import ExonSession  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))

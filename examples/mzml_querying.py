@@ -12,10 +12,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("EXON_PLATFORM", "cpu"))
-
 from exon_tpu import ExonSession  # noqa: E402
 
 REFERENCE_MZML = "/root/reference/exon-examples/data/GNPS00002_A3_p.mzML"

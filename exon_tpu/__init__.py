@@ -1,10 +1,10 @@
-"""exon-tpu: a TPU-native vectorized query engine for bioinformatics data.
+"""exon-tpu: a vectorized JAX query engine for bioinformatics data.
 
 Brand-new engine with the capabilities of wheretrue/exon (SQL access to
-FASTA/FASTQ/VCF/BAM/GFF/mzML/… data), redesigned TPU-first: host decoders
-stage fixed-shape device columns; filter / aggregate / sort / join execute
-as JAX/XLA/Pallas kernels; multi-host scaling uses jax.sharding meshes with
-all_to_all shuffles (see exon_tpu.parallel).
+FASTA/FASTQ/VCF/BAM/GFF/mzML/… data), redesigned for an accelerator: host
+decoders stage fixed-shape device columns; filter / aggregate / sort / join
+execute as JAX/XLA programs; multi-device scaling uses jax.sharding meshes
+with all_to_all shuffles (see exon_tpu.parallel).
 """
 
 import os as _os
@@ -13,41 +13,18 @@ import jax as _jax
 
 # Engine-wide requirement: schemas carry Int64 positions/counts (Arrow
 # parity); enable 64-bit types before any jnp use. Hot kernels still use
-# int32 internally where it matters for TPU speed.
+# int32 internally where it halves the bytes they move.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: TPU kernel compiles are expensive
-# (10-40s each on some runtimes); caching makes every query shape pay that
-# once per machine, not once per process.
-def _machine_tag() -> str:
-    # key the cache by CPU feature set: XLA:CPU AOT artifacts compiled on
-    # a different microarchitecture fail to load (cpu_aot_loader "machine
-    # type doesn't match" errors) and can even SIGILL
-    import hashlib
-    import platform as _pf
-
-    tag = _pf.machine()
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    tag += hashlib.md5(line.encode()).hexdigest()[:8]
-                    break
-    except OSError:
-        pass
-    return tag
-
-
-_cache_dir = _os.environ.get(
-    "EXON_TPU_XLA_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache",
-                  "exon_tpu_xla_" + _machine_tag()))
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
+# Persistent XLA compilation cache, so every query shape compiles once per
+# machine, not once per process. JAX itself honours
+# JAX_COMPILATION_CACHE_DIR; otherwise the cache sits at one fixed path in
+# the checkout, where every later process finds it.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache"))
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from . import tracing  # EXON_LOG-configured logger
 from .batch import Batch, Schema, DEFAULT_BATCH_SIZE

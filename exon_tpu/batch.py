@@ -1,7 +1,7 @@
-"""Device-columnar record batches: the Arrow-on-TPU substrate.
+"""Device-columnar record batches: the Arrow-on-device substrate.
 
 The reference engine moves data as Arrow ``RecordBatch``es between streaming
-operators (exon-common/src/array_builder.rs:20-45). On TPU, XLA requires
+operators (exon-common/src/array_builder.rs:20-45). Under jit, XLA requires
 static shapes, so a batch here is a pytree of fixed-**capacity** device
 buffers plus a dynamic row-count scalar:
 
@@ -10,7 +10,7 @@ buffers plus a dynamic row-count scalar:
                        (strings use uint8 values; ``List<Int64>`` quality
                        scores and ``List<Float64>`` mz peaks use wider dtypes)
   * ``DictColumn``   — int32 codes + a *host-side static* vocabulary; the
-                       TPU-native encoding for chromosome / feature-type /
+                       device encoding for chromosome / feature-type /
                        filter columns so group-by & join are integer ops
   * ``StructColumn`` — named children
 

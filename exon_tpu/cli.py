@@ -83,7 +83,7 @@ def repl(session, args) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="exon-tpu",
-                                description="TPU-native SQL for bio data")
+                                description="SQL for bio data on JAX")
     p.add_argument("-c", "--command", action="append", default=[],
                    help="run the given SQL command (repeatable)")
     p.add_argument("-f", "--file", action="append", default=[],

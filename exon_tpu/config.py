@@ -15,7 +15,7 @@ import os
 class SessionConfig:
     batch_size: int = 8192                     # DEFAULT_BATCH_SIZE (output granularity)
     # rows per *device* batch on the scan path: large batches amortize
-    # host→device transfer + dispatch latency (the TPU analog of the
+    # host→device transfer + dispatch latency (the device analog of the
     # reference's 8192-row Arrow batches; results are identical either way)
     device_batch_size: int = 1 << 17
     target_partitions: int = 0                 # 0 → device/host-parallel default
@@ -29,7 +29,7 @@ class SessionConfig:
     bam_parse_tags: bool = False
     cram_parse_tags: bool = False
 
-    # distributed execution over a jax.sharding.Mesh (the TPU-native analog
+    # distributed execution over a jax.sharding.Mesh (the device analog
     # of the reference's repartitioned operators, config/mod.rs:31,40-43):
     # when enabled, aggregates over scan pipelines execute data-parallel on
     # the mesh's 'shard' axis with an all_to_all partial exchange.

@@ -2,7 +2,7 @@
 
 Mirrors the schema surface of the reference engine (Arrow types used by
 wheretrue/exon, see exon-common/src/table_schema.rs:22-115) but is designed
-for a TPU-first columnar layout: every logical type maps onto fixed-shape
+for a device columnar layout: every logical type maps onto fixed-shape
 device buffers (values / offsets / validity) so that XLA sees static shapes.
 
 This module is pure host-side metadata; no jax imports.
@@ -33,9 +33,9 @@ class TypeKind(enum.Enum):
     LIST = "list"
     STRUCT = "struct"
     # Dictionary-encoded utf8: int32 codes + host-side vocabulary. This is the
-    # TPU-native representation for low-cardinality string columns (chromosome
+    # device representation for low-cardinality string columns (chromosome
     # names, feature types, filters) — group-by and joins on these become
-    # integer ops on the MXU/VPU instead of string compares.
+    # integer ops on the device instead of string compares.
     DICTIONARY = "dictionary"
     MAP = "map"  # represented as list<struct<key,value>>
 

@@ -1,7 +1,7 @@
 """Vectorized host-side dictionary encoding for low-cardinality columns.
 
 Chromosome/feature-type/strand columns become int32 codes + a small host
-vocabulary (batch.DictColumn) — the TPU-native string representation that
+vocabulary (batch.DictColumn) — the device string representation that
 turns group-by/join/compare into integer ops. Encoding itself is one padded
 gather + np.unique (sort-based), no per-row Python.
 """

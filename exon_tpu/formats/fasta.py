@@ -8,7 +8,8 @@ with name = chars to first space, description = rest (null if absent).
 
 Decode strategy (no per-record loop): one pass finds newlines, one pass
 classifies header lines, and sequence bytes are compacted with a boolean
-mask — all numpy C kernels, leaving the hot filter/aggregate work to the TPU.
+mask — all numpy C kernels, leaving the hot filter/aggregate work to the
+device.
 """
 
 from __future__ import annotations

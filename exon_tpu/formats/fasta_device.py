@@ -1,4 +1,4 @@
-"""FASTA decode ON the TPU: raw bytes in, columnar batches out.
+"""FASTA decode on the device: raw bytes in, columnar batches out.
 
 Pipeline per chunk (host splits the file at record boundaries into
 uniform-capacity chunks):
@@ -8,8 +8,8 @@ uniform-capacity chunks):
   phase 2 (jit): stream-compact sequence/name/description bytes into
                  Arrow-layout VarColumns + offsets, all on device
 
-Every pass is a fused mask/cumsum/scatter over the byte stream — HBM-bound,
-no host CPU in the loop (the 2-core host only does IO + gzip). Semantics
+Every pass is a fused mask/cumsum/scatter over the byte stream in device
+memory, no host CPU in the loop (the host only does IO + gzip). Semantics
 match the host decoder (exon_tpu.formats.fasta) and the reference
 (exon-fasta/src/batch_reader.rs): '>' headers, name = to first space,
 description nullable, multi-line sequences, DNA/protein integer encodings.

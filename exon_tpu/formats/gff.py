@@ -5,7 +5,7 @@ Parity: exon-gff (src/config.rs:82-99) and exon-gtf (src/config.rs:28-41):
 score/phase/strand('.' kept as literal for strand per noodles); attributes
 parsed into Map<Utf8, List<Utf8>>.
 
-seqname/source/type/strand/phase are dictionary-encoded (TPU-native group/
+seqname/source/type/strand/phase are dictionary-encoded (integer group/
 join keys); start/end Int64 (1-based inclusive), score Float32.
 """
 

@@ -161,9 +161,9 @@ def decompress_all(buf) -> bytes:
     out = native.gunzip(buf)
     if out is not None:
         return out.tobytes()
-    import gzip
+    from .compression import gunzip_members
 
-    return gzip.decompress(bytes(buf))
+    return gunzip_members(buf)
 
 
 def decompress_all_view(buf):
@@ -175,10 +175,11 @@ def decompress_all_view(buf):
     out = native.gunzip(buf)
     if out is not None:
         return out
-    import gzip
     import numpy as np
 
-    return np.frombuffer(gzip.decompress(bytes(buf)), np.uint8)
+    from .compression import gunzip_members
+
+    return np.frombuffer(gunzip_members(buf), np.uint8)
 
 
 def compress_bgzf(data: bytes, block_size: int = 0xFF00, level: int = 6) -> bytes:

@@ -62,6 +62,28 @@ def is_bgzf(data: bytes) -> bool:
     return False
 
 
+_MEMBER_CHUNK = 1 << 16  # a BGZF member is at most 64 KiB compressed
+
+
+def gunzip_members(data) -> bytes:
+    """Inflate a multi-member gzip stream (BGZF is thousands of members)
+    with zlib in one linear pass. gzip.decompress copies the rest of the
+    input once per member, which is quadratic in the member count."""
+    view = memoryview(data).cast("B")
+    out, pos, n = [], 0, len(view)
+    while pos < n:
+        d = zlib.decompressobj(31)
+        while not d.eof:
+            chunk = view[pos:pos + _MEMBER_CHUNK]
+            if not len(chunk):
+                raise zlib.error("truncated gzip member")
+            out.append(d.decompress(chunk))
+            pos += len(chunk) - len(d.unused_data)
+        while pos < n and view[pos] == 0:  # zero padding between members
+            pos += 1
+    return b"".join(out)
+
+
 def decompress(data: bytes, comp: Compression) -> bytes:
     if comp == Compression.NONE:
         # still sniff magic: the reference infers from extension only, but a
@@ -73,9 +95,7 @@ def decompress(data: bytes, comp: Compression) -> bytes:
         out = native.gunzip(data)  # libdeflate; BGZF blocks in parallel
         if out is not None:
             return out.tobytes()
-        # multi-member gzip (BGZF is many members); zlib handles concatenation
-        # via gzip.decompress
-        return gzip.decompress(bytes(data))
+        return gunzip_members(data)
     if comp == Compression.ZSTD:
         from .. import native
 

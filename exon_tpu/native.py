@@ -19,16 +19,17 @@ import numpy as np
 
 _LIB = None
 _TRIED = False
+_ERROR: Optional[str] = None
 
 # ------------------------------------------------------------------
 # Huge-page host buffers.
 #
-# Large fresh allocations on this class of host fault 4 KiB pages at
-# ~0.2 GB/s — 5 s per GB before a single byte of real work. Backing big
-# ingest buffers (decompression output, flat record buffers) with
-# MADV_HUGEPAGE anonymous mmaps cuts fault count 512x (~8x faster first
-# touch), and recycling the mappings through a small pool makes repeat
-# scans (the steady state of a query engine) fault-free.
+# Large fresh allocations fault 4 KiB pages one at a time, which can cost
+# more than the decode that fills them. Backing big ingest buffers
+# (decompression output, flat record buffers) with MADV_HUGEPAGE anonymous
+# mmaps cuts the fault count 512x, and recycling the mappings through a
+# small pool makes repeat scans (the steady state of a query engine)
+# fault-free.
 # ------------------------------------------------------------------
 
 _HUGE_MIN = 1 << 21          # below 2 MiB plain numpy is fine
@@ -41,7 +42,7 @@ _pool_bytes = 0
 def _round_huge(n: int) -> int:
     # coarse size classes above 64 MiB (round up to 128 MiB) so buffers for
     # different files/formats reuse each other's mappings — a pool miss
-    # costs a fresh ~0.3 s/GB huge-page fault walk
+    # costs a fresh huge-page fault walk
     if n > (64 << 20):
         return (n + (1 << 27) - 1) & ~((1 << 27) - 1)
     return (n + (1 << 21) - 1) & ~((1 << 21) - 1)
@@ -116,6 +117,38 @@ def _so_path() -> str:
                         "native", "libexon_native.so")
 
 
+def load_error() -> Optional[str]:
+    """Why the native library did not load, or None."""
+    return _ERROR
+
+
+def _fail(reason: str) -> bool:
+    global _ERROR
+    from .tracing import logger
+
+    _ERROR = reason
+    logger.warning("native library %s", reason)
+    return False
+
+
+def _build(path: str) -> bool:
+    """Compile native/*.cpp into ``path``; log the build's stderr."""
+    from .tracing import logger
+
+    build = os.path.join(os.path.dirname(path), "build.sh")
+    try:
+        proc = subprocess.run(["sh", build], capture_output=True, text=True,
+                              timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return _fail(f"build failed: {e}")
+    if proc.returncode != 0:
+        return _fail(f"build failed (exit {proc.returncode}): "
+                     f"{proc.stderr.strip()[-2000:]}")
+    if proc.stderr.strip():
+        logger.warning("native library build: %s", proc.stderr.strip())
+    return True
+
+
 def get_lib():
     """Load (building on first use if possible) the native library."""
     global _LIB, _TRIED
@@ -123,16 +156,12 @@ def get_lib():
         return _LIB
     _TRIED = True
     path = _so_path()
-    if not os.path.exists(path):
-        build = os.path.join(os.path.dirname(path), "build.sh")
-        try:
-            subprocess.run(["sh", build], capture_output=True, timeout=120,
-                           check=True)
-        except Exception:
-            return None
+    if not os.path.exists(path) and not _build(path):
+        return None
     try:
         lib = ctypes.CDLL(path)
-    except OSError:
+    except OSError as e:
+        _fail(f"load failed: {e}")
         return None
     lib.fasta_count_records.restype = ctypes.c_int64
     lib.fasta_count_records.argtypes = [ctypes.c_char_p, ctypes.c_int64]
@@ -405,7 +434,7 @@ def fasta_fill_sequences(data: bytes, header_start: np.ndarray,
 
 def gunzip(data, n_threads: int = 0):
     """Decompress gzip/BGZF via libdeflate — BGZF members inflate in
-    parallel across all cores (the TPU-ingest analog of noodles-bgzf's
+    parallel across all cores (the ingest analog of noodles-bgzf's
     per-block reader, streaming_bgzf.rs:56-118). Returns a uint8 ndarray,
     or None when the native path can't size/handle the stream (caller
     falls back to zlib)."""

@@ -1,1 +1,1 @@
-"""Device operator kernels (JAX/XLA/Pallas) for the exon-tpu query engine."""
+"""Device operator kernels (JAX/XLA) for the exon-tpu query engine."""

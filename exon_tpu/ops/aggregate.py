@@ -1,14 +1,14 @@
-"""Hash-aggregate kernels, TPU-style.
+"""Hash-aggregate kernels for a vector machine.
 
 The reference runs DataFusion's repartitioned hash aggregate
-(config/mod.rs:31). On TPU a hash table of scalar probes is the wrong shape;
-instead:
+(config/mod.rs:31). On the device a hash table of scalar probes is the
+wrong shape; instead:
 
   * **Dictionary path** (group keys already int codes — chrom, feature type):
-    a single ``segment_sum`` over codes. One HBM pass, VPU-bound.
+    a single ``segment_sum`` over codes. One pass over device memory.
   * **Generic path**: sort rows by packed 64-bit key, then segment-reduce on
-    key-change boundaries. XLA's sort is an efficient on-chip bitonic/merge
-    network; this is the idiomatic TPU "hash" aggregate.
+    key-change boundaries. One XLA sort replaces the hash table; this is
+    the data-parallel "hash" aggregate.
 
 Both paths mask padding rows and return fixed-capacity group arrays plus a
 dynamic group count.

@@ -1,4 +1,4 @@
-"""Smith-Waterman local alignment on TPU.
+"""Smith-Waterman local alignment on the device.
 
 Replaces the reference's vendored rust-bio pairwise aligner
 (exon-core/src/rust_bio_alignment/pairwise/, used by the alignment_score

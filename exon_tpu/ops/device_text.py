@@ -2,10 +2,9 @@
 
 THE architectural pivot from the reference: Exon parses records one at a
 time on the host CPU (noodles parsers, exon-fasta/src/batch_reader.rs). Here
-the raw (decompressed) file bytes ship to the TPU — host→device transfer
-runs at PCIe/ICI speed — and the *parse itself* runs on device as
-vectorized mask/cumsum/scatter passes at HBM bandwidth. A 2-core host can
-then feed a TPU at full speed; the host only does IO + gzip.
+the raw (decompressed) file bytes ship to the device in one bulk copy,
+and the *parse itself* runs there as vectorized mask/cumsum/scatter passes
+over device memory; the host only does IO + gzip.
 
 All kernels are shape-static: byte buffers padded to bucketed capacities,
 true lengths ride as scalars. Core primitives:
@@ -45,9 +44,7 @@ def line_starts_mask(arr: jnp.ndarray, length) -> jnp.ndarray:
 def cummax_pos(flag: jnp.ndarray) -> jnp.ndarray:
     """Position of the most recent True at or before each index (-1 if none).
 
-    Implemented as cumsum + scatter + gather (associative_scan is
-    pathologically slow on some TPU runtimes): the k-th True's position goes
-    into a table; each byte looks up entry (count_at_byte - 1).
+    One ``lax.cummax`` over the positions of the True entries.
     """
     n = flag.shape[0]
     pos = jnp.where(flag, byte_positions(n), -1)
@@ -59,14 +56,14 @@ def compact(arr: jnp.ndarray, keep: jnp.ndarray, out_cap: int,
     """Stream compaction: gather arr[keep] into a dense prefix.
 
     Returns (out[out_cap], total kept). One cumsum + one scatter, both
-    HBM-bandwidth-bound.
+    bound by memory bandwidth.
     """
     n = keep.shape[0]
     kidx = jnp.cumsum(keep.astype(jnp.int32), dtype=jnp.int32) - 1
     total = jnp.where(n > 0, kidx[-1] + 1, 0)
     # every element gets a UNIQUE target: kept → dense prefix, dropped →
-    # dump region past out_cap (unique indices let XLA use the fast
-    # collision-free scatter path on TPU)
+    # dump region past out_cap (unique indices let XLA use a
+    # collision-free scatter)
     pos = byte_positions(n)
     target = jnp.where(jnp.logical_and(keep, kidx < out_cap),
                        kidx, out_cap + pos)
@@ -78,7 +75,7 @@ def compact(arr: jnp.ndarray, keep: jnp.ndarray, out_cap: int,
 def segment_lengths(seg_ids: jnp.ndarray, mask: jnp.ndarray,
                     num_segments: int) -> jnp.ndarray:
     """Count live bytes per segment id (ids non-decreasing along the byte
-    stream — annotate so the TPU scatter stays on the fast path)."""
+    stream — annotated so XLA may use a sorted scatter)."""
     ids = jnp.clip(seg_ids, 0, num_segments - 1)
     return jnp.zeros(num_segments, jnp.int32).at[ids].add(
         mask.astype(jnp.int32), indices_are_sorted=True)

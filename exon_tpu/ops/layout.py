@@ -9,7 +9,7 @@ These are the building blocks every relational operator uses:
   * ``expand_segments``— repeat row i count[i] times (join multiplicity)
 
 All are shape-static and fuse under jit; the flat-buffer design keeps them
-HBM-bandwidth-bound streaming ops on TPU (no scalar loops, no dynamic shapes).
+streaming ops bound by memory bandwidth (no scalar loops, no dynamic shapes).
 
 Replaces the role of Arrow compute's take/filter kernels used throughout the
 reference engine's DataFusion operators.
@@ -133,7 +133,7 @@ def relayout_values(values: jnp.ndarray, src_starts: jnp.ndarray,
         out[p] = values[src_starts[r] + (p - new_offsets[r])]
 
     Pass sorted_src=True when src_starts is non-decreasing (filter-style
-    takes) — keeps the TPU gather on the fast path.
+    takes) — lets XLA use a sorted gather.
     """
     vcap = values.shape[0]
     rid = byte_row_ids(new_offsets, out_vcap)

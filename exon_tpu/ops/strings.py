@@ -2,7 +2,7 @@
 
 Strings live as flat uint8 + offsets (see batch.VarColumn). Predicates are
 computed as bool[cap] masks with pure gathers/compares — no per-row loops —
-so XLA lowers them to fused VPU streams at HBM bandwidth.
+so XLA lowers them to fused elementwise streams over device memory.
 
 Covers the string surface the reference engine gets from DataFusion
 (LIKE/ILIKE, =, starts_with, ends_with, contains, upper/lower) plus the

@@ -3,7 +3,7 @@
 The reference is single-process (SURVEY.md §2e); its intra-process
 repartition (DataFusion RepartitionExec, file regrouping in
 exon_file_scan_config.rs:79-110) maps here to SPMD execution over a
-jax.sharding.Mesh with all_to_all hash-partition shuffles riding ICI.
+jax.sharding.Mesh with all_to_all hash-partition shuffles.
 """
 
 from .mesh import make_mesh, default_mesh

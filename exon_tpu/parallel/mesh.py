@@ -6,15 +6,15 @@ Axes convention:
   * ``lane``   — optional intra-operator axis (wide sort/join stages can
     subdivide work); degree 1 unless requested.
 
-On a v5p pod slice, ``shard`` should be laid out over ICI-adjacent devices so
-all_to_all shuffles stay on ICI; multi-host DCN crossings happen only at the
-(rare) final gather.
+The ``shard`` axis is a plain 1-D list of devices: shuffles exchange over
+it with all_to_all, which assumes every device reaches every other at the
+same rate.
 
 Multi-host: ``init_distributed`` brings up ``jax.distributed`` (from
-arguments or EXON_TPU_* / JAX_* environment variables); ``make_mesh`` then
-builds the shard axis over the *global* device list ordered so each
-process's addressable devices are contiguous — per-wave work is purely
-local, and the single end-of-query exchange is the only DCN crossing.
+arguments or EXON_TPU_* environment variables); ``make_mesh`` then builds
+the shard axis over the *global* device list ordered so each process's
+addressable devices are contiguous — per-wave work is purely local, and
+the single end-of-query exchange is the only one that crosses hosts.
 Scans split their file lists per process with ``iter_scan_files`` so every
 host decodes only its own shard of the input (the multi-host analog of the
 reference's regroup_files_by_size partitioning,
@@ -41,10 +41,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize ``jax.distributed`` for multi-host execution.
 
     Arguments fall back to ``EXON_TPU_COORDINATOR`` /
-    ``EXON_TPU_NUM_PROCESSES`` / ``EXON_TPU_PROCESS_ID`` (and then to JAX's
-    own autodetection, e.g. TPU metadata). Returns True if a multi-process
-    runtime is (already) up; False for single-process operation. Safe to
-    call more than once."""
+    ``EXON_TPU_NUM_PROCESSES`` / ``EXON_TPU_PROCESS_ID``. Returns True if
+    a multi-process runtime is (already) up; False for single-process
+    operation. Safe to call more than once."""
     global _DIST_INITIALIZED
     if _DIST_INITIALIZED:
         return jax.process_count() > 1
@@ -71,18 +70,9 @@ def make_mesh(n_devices: Optional[int] = None, lane: int = 1,
         if jax.process_count() > 1:
             # order the shard axis so each process's devices are contiguous:
             # per-wave compute is process-local; only the final group-state
-            # all_to_all crosses DCN
+            # all_to_all crosses hosts
             devices = sorted(devices,
                              key=lambda d: (d.process_index, d.id))
-        if n_devices is not None and len(devices) < n_devices:
-            # dev/test fallback: virtual CPU devices (needs
-            # jax_num_cpu_devices set before backend init)
-            try:
-                cpus = jax.devices("cpu")
-                if len(cpus) >= n_devices:
-                    devices = cpus
-            except RuntimeError:
-                pass
         if n_devices is not None and len(devices) < n_devices:
             raise ValueError(
                 f"need {n_devices} devices, have {len(devices)}")

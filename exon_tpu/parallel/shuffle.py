@@ -2,7 +2,8 @@
 
 The distributed substrate of the engine (BASELINE.json north star): tables
 hash-partitioned by key (chromosome / position-bucket), exchanged with
-``lax.all_to_all`` inside ``shard_map`` so the exchange rides ICI.
+``lax.all_to_all`` inside ``shard_map``, which XLA hands to the device
+collectives.
 
 Design notes:
   * Static shapes: each device sends a fixed-capacity bucket to every peer

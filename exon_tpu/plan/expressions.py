@@ -275,7 +275,7 @@ class Case(Expr):
 
     The reference gets CASE from DataFusion's expression surface; here the
     whole expression lowers to one jnp.where chain (string results become a
-    device DictColumn keyed by branch index — the TPU-friendly encoding)."""
+    device DictColumn keyed by branch index — an integer encoding)."""
 
     operand: Optional[Expr]
     whens: list  # [(when_expr, then_expr)]

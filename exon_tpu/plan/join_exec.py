@@ -1,4 +1,4 @@
-"""Hash-equi-join, TPU style: sorted build side + searchsorted probe.
+"""Hash-equi-join as sorted build side + searchsorted probe.
 
 The reference uses DataFusion's repartitioned hash join (config/mod.rs:31);
 scalar-probe hash tables are the wrong shape for a vector machine, so the

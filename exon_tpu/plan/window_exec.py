@@ -1,4 +1,4 @@
-"""Window functions, TPU style.
+"""Window functions as fused device sorts and scans.
 
 The reference inherits window functions from DataFusion 44. Here the whole
 OVER computation is one fused device kernel per window call:

@@ -2,7 +2,7 @@
 
 The reference ships ``exon-py`` — a client for a hosted "Exome" catalog
 service speaking gRPC + ADBC/FlightSQL (exon-py/exon_py/__init__.py:30-80;
-the server is not in that repo). The TPU engine's analog is self-contained:
+the server is not in that repo). This engine's analog is self-contained:
 ``ExonServer`` hosts an ``ExonSession`` behind a tiny HTTP endpoint that
 accepts SQL (POST /sql, body = query text) and streams the result back as
 an Arrow IPC stream — the same wire format FlightSQL rides — and

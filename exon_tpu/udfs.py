@@ -1,6 +1,6 @@
 """Scalar UDF kernels — the bio function library.
 
-TPU re-implementations of the reference's UDFs
+Device re-implementations of the reference's UDFs
 (exon-core/src/udfs/sequence/mod.rs:37-69, udfs/sam/samflags.rs:111-135,
 udfs/vcf/mod.rs): every function operates on whole device batches as
 vectorized jnp ops (gathers + segment reductions over the flat byte
@@ -197,7 +197,7 @@ def is_mapped(batch: Batch, flags) -> jnp.ndarray:
 
 
 # -- alignment_score (udfs/sequence/alignment_score.rs:95-140;
-#    TPU kernel in ops/alignment.py) ----------------------------------------
+#    device kernel in ops/alignment.py) -------------------------------------
 
 
 def alignment_score(batch: Batch, seq, other, band=None) -> jnp.ndarray:

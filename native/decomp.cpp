@@ -5,8 +5,8 @@
 // flate2/zstd codecs behind FileCompressionType
 // (exon-core/src/datasources/exon_file_type.rs:25-118,
 //  exon-core/src/streaming_bgzf.rs:56-118). Here decompression is a
-// first-class parallel primitive because host ingest feeds a TPU, not a
-// same-core tokio task: BGZF members are independent deflate streams, so
+// first-class parallel primitive because host ingest feeds an accelerator,
+// not a same-core tokio task: BGZF members are independent deflate streams, so
 // all cores inflate concurrently into one preallocated output buffer.
 //
 // ABI declared locally (no dev headers in the image); linked against the

@@ -1,6 +1,6 @@
 // Native FASTA scanner: single-pass decode of record structure.
 //
-// The TPU engine's host-side ingest kernel (the role noodles' Rust parsers
+// The engine's host-side ingest kernel (the role noodles' Rust parsers
 // play in the reference, exon-fasta/src/batch_reader.rs) — one pass over the
 // buffer produces, per record:
 //   * header start/end offsets (name/description split at first space)
@@ -128,7 +128,7 @@ int64_t fasta_fill_sequences(const uint8_t* data, int64_t n,
 // Multithreaded FASTA scan: split the buffer at record ('\n>') boundaries,
 // count + scan each shard in parallel, write shard s's records at the
 // shard's global record offset. Host ingest is the engine's noodles-analog
-// hot loop; this keeps a 2-core host ahead of the TPU.
+// hot loop; threads keep host decode ahead of the device.
 
 static int64_t next_record_boundary(const uint8_t* data, int64_t n,
                                     int64_t from) {

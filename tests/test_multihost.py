@@ -7,7 +7,7 @@ single-process results while each process decodes only its own file shard
 (parallel/mesh.py iter_scan_files).
 
 Role analog: the reference has no multi-node axis (SURVEY §2e); this is the
-north-star substrate over jax.distributed + DCN-aware mesh.
+north-star substrate over jax.distributed + a host-ordered mesh.
 """
 
 import json

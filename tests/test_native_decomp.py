@@ -1,6 +1,6 @@
 """Native decompression layer: libdeflate gzip/BGZF + libzstd.
 
-Covers the ingest-path primitives added for TPU-rate host decode
+Covers the ingest-path primitives added for fast host decode
 (native/decomp.cpp): parallel BGZF member inflation, single-shot gzip,
 multi-member gzip, streaming zstd, BGZF block tables, BAM record-offset
 scanning, and the io-layer wiring (decompress / decompress_view /
